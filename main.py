@@ -2,7 +2,7 @@
 """CLI entry point: ``python main.py -t {reference,dumpref,align,dumpalign} ...``
 
 Same task/flag surface as the reference (reference main.py); engine is the
-TPU-native shotgun_tpu package.
+JAX shotgun_tpu package.
 """
 
 from shotgun_tpu.cli import main

@@ -1,10 +1,11 @@
-"""shotgun_tpu: a TPU-native shotgun-metagenomics pseudo-alignment engine.
+"""shotgun_tpu: a JAX shotgun-metagenomics pseudo-alignment engine.
 
 A from-scratch rebuild of the capabilities of
 nyenyu12/BioInformatics-project-for-Shotgun-Metagenomics-Pseudo-alignment-shotgun-
-designed for JAX/XLA on TPU: 2-bit packed k-mers, a bucketized
-open-addressing hash table in HBM, a vectorized probe + classify pipeline
-under ``jit``, and data-parallel scaling via ``jax.sharding``.
+designed for JAX/XLA on an accelerator: 2-bit packed k-mers, a sort-merge
+probe and a bucketized hash table in device memory, a vectorized probe +
+classify pipeline under ``jit``, and data-parallel scaling via
+``jax.sharding``.
 
 Public API mirrors the reference's: FASTAFile/FASTAQFile, KmerReference,
 Read.pseudo_align, PseudoAlignment, plus the same 4 CLI tasks.

@@ -16,7 +16,7 @@ NULL_NUCLEOTIDE = "N"
 REAL_NUCLEOTIDES = "ACGT"
 NUCLEOTIDES = REAL_NUCLEOTIDES + NULL_NUCLEOTIDE
 
-# 2-bit base codes for the TPU-native numeric core. N gets code 4 and is
+# 2-bit base codes for the numeric core. N gets code 4 and is
 # handled with validity masks (k-mers containing N never enter the DB;
 # FASTQ reads cannot contain N at all -- the parser rejects them).
 BASE_A, BASE_C, BASE_G, BASE_T, BASE_N = 0, 1, 2, 3, 4

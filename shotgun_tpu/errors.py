@@ -6,7 +6,7 @@ user-input problems (``similarity_threshold`` out of range,
 kmer.py:115-117; negative ``m``, kmer.py:488-489).  Catching bare
 ValueError at the CLI, however, also swallows genuine internal bugs
 (a bad reshape, a shape mismatch) and presents them as clean user
-errors (VERDICT r4 weak #5).
+errors.
 
 ``UserInputError`` subclasses ValueError so the public API surface is
 unchanged (``pytest.raises(ValueError)`` and reference-parity message

@@ -1,11 +1,12 @@
-"""Device-side k-mer index build v2: the TPU replaces the host build loop.
+"""Device-side k-mer index build v2: the accelerator replaces the host
+build loop.
 
-The reference builds its DB with a Python dict scan at 0.05 Mbp/s
-(reference kmer.py:135-150); the native C++ builder reaches ~20 Mbp/s on
-the 2 host cores at 1 Mbp but collapses to ~1.5 Mbp/s at 100 Mbp
-(memory-bound radix).  This module builds the ALIGN-relevant index --
-the sorted probe table (keys, set ids, genome counts) and the genome-set
-member table -- entirely on the TPU, for ANY record count up to
+The reference builds its DB with a Python dict scan (reference
+kmer.py:135-150), and the native C++ builder is a memory-bound radix
+whose rate falls as the collection grows.  This module builds the
+ALIGN-relevant index -- the sorted probe table (keys, set ids, genome
+counts) and the genome-set member table -- entirely on the device, for
+ANY record count up to
 ``R_CAP`` and any k <= 31.  The big arrays stay device-resident and feed
 ``ops.probe_sort2`` directly; only two scalar words and a bounded
 (set, record) pair list come back to the host.
@@ -50,7 +51,6 @@ against the host index (tests/test_device_build.py).
 from __future__ import annotations
 
 import functools
-import os
 import time
 from typing import Optional
 
@@ -74,7 +74,7 @@ SMAX = 4096
 PMAX = 1 << 17
 #: pair-fetch head size: the common fetch ships only this many pairs
 #: (most corpora have few multi sets); the full [PMAX] tail is fetched
-#: in a second RPC only when n_pairs exceeds it
+#: in a second transfer only when n_pairs exceeds it
 PHEAD = 4096
 #: cap on uploaded N-run (start, end) pairs; draft genomes carry
 #: thousands of assembly-gap runs, so the cap is generous -- past it the
@@ -93,8 +93,8 @@ def _mix32(x):
 def _segmented_sum_scan(new, vals):
     """Inclusive segmented SUM scan (segments start where ``new`` is
     True): flag-carrying Hillis-Steele doubling, O(log n) constant-HLO
-    steps (jax.lax.associative_scan's compile time explodes with array
-    size on TPU; this form compiles flat)."""
+    steps (jax.lax.associative_scan's compile time grows with array
+    size; this form compiles flat)."""
     n = int(new.shape[0])
     flag = new
     vals = tuple(vals)
@@ -130,7 +130,7 @@ def _build_tables_v2(buf, r_num, *, k: int, gp: int):
     """Single-dispatch general build.  ``buf`` is the combined upload:
     [gp/4] 2-bit packed codes ++ [NRUNS_CAP*2] int32 N-run (start, end)
     pairs ++ [(R_CAP+1)] int32 record-start offsets, all little-endian
-    bytes in ONE host->device RPC.  N/pad positions pack as code 0 and
+    bytes in ONE host->device transfer.  N/pad positions pack as code 0 and
     are invalidated here by rebuilding the bad plane from +1/-1 run
     deltas (0.25 B/base upload; the r5a dense bitmask was 0.375).
     ``r_num`` is the record count as a TRACED int32 scalar, so differing
@@ -282,7 +282,7 @@ def _build_tables_v2(buf, r_num, *, k: int, gp: int):
 
 def _host_prep(genomes, k: int, pad_rows):
     """2-bit pack + sparse N-run list + offsets, combined into ONE upload
-    buffer (every separate host->device array is an RPC round trip).
+    buffer (one host->device transfer instead of three).
     The pack runs in the native lib (one pass, 2 threads) with a numpy
     fallback.  Returns (buf, gp) or None when the corpus has more than
     NRUNS_CAP N runs (caller falls back to the host builder)."""
@@ -356,7 +356,7 @@ def device_build_tables(genomes, k: int, pad_rows) -> Optional[dict]:
      pairs_hd, pair_gc_hd, pairs_fd, pair_gc_fd) = _build_tables_v2(
         jnp.asarray(buf), jnp.int32(r), k=k, gp=gp)
     # ONE fetch: scalars + the pair-list head together; the full pair
-    # tail costs a second RPC only for multi-set-heavy corpora
+    # tail costs a second fetch only for multi-set-heavy corpora
     u, n_multi, n_pairs, pairs, pair_gc = jax.device_get(
         (num_kmers_d, n_multi_d, n_pairs_d, pairs_hd, pair_gc_hd))
     u, n_multi, n_pairs = int(u), int(n_multi), int(n_pairs)
@@ -431,14 +431,10 @@ def _hash_table_from_rows(klo, khi, sid, gc, *, nb: int):
     real = bs < jnp.int32(nb)
     placed = real & (rank < HASH_SLOTS)
     cols = (klo2, khi2, sid2.astype(jnp.uint32), gc2.astype(jnp.uint32))
-    # scatter each column separately into a FLAT 1-D table: a stacked
-    # [n, 4] value array would be lane-padded 4 -> 128 on TPU (32x the
-    # memory -- a 100M-key build tried to allocate 51 GB of it)
     # init: every slot's sid word carries the EMPTY marker -- built by
     # broadcasting a 4-word pattern (an iota-indexed scatter here cost a
     # 2 GB index plane + an extra 8 GB copy at 100M keys).  Columns
     # scatter one at a time with 3-D (bucket, slot, word) indices: a
-    # stacked [n, 4] value array lane-pads 4 -> 128 (32x memory), and a
     # flattened index space overflows int32 past 2^31 table words.
     pat = jnp.asarray([0, 0, int(_ONES), 0], jnp.uint32)
     table = jnp.broadcast_to(
@@ -462,25 +458,65 @@ def _hash_table_from_rows(klo, khi, sid, gc, *, nb: int):
     return table, stash, n_stash
 
 
+#: device bytes one align batch needs beside the resident tables: the
+#: largest auto batch (32768 reads padded to 160 bases, 130 windows each)
+#: touches 32768 * 130 bucket rows of HASH_SLOTS * 16 B (1.1 GB) plus its
+#: per-window masks and the set-count one-hots; 4 GiB covers them
+ALIGN_BATCH_MARGIN = 4 << 30
+#: peak device bytes per padded genome position of ``_build_tables_v2``
+#: (sort operands, their sorted copies and the per-row scans)
+BUILD_BYTES_PER_ROW = 128
+
+
+def budget_from_stats(stats: Optional[dict]) -> Optional[int]:
+    """Device bytes a new table may take, from ``Device.memory_stats()``:
+    the allocator's limit minus what is in use minus one align batch's
+    working set (``ALIGN_BATCH_MARGIN``).  None where the backend reports
+    no ``bytes_limit`` (the CPU backend): no budget applies there."""
+    if not stats or "bytes_limit" not in stats:
+        return None
+    return (int(stats["bytes_limit"]) - int(stats.get("bytes_in_use", 0))
+            - ALIGN_BATCH_MARGIN)
+
+
+def device_memory_budget() -> Optional[int]:
+    """``budget_from_stats`` of the first device, as it is now."""
+    return budget_from_stats(jax.devices()[0].memory_stats())
+
+
+def _hash_buckets(num_keys: int) -> int:
+    return 1 << max(int(max(num_keys / HASH_LAMBDA, 1)) - 1, 1).bit_length()
+
+
+def _hash_bytes(nb: int, n_rows: int) -> int:
+    """Device bytes of a hash assembly: the table plus the scatter's
+    sort workspace over the ``n_rows`` sorted-table rows."""
+    return nb * HASH_SLOTS * 16 + 8 * n_rows * 4
+
+
+def device_build_bytes(n_bases: int, pad_rows) -> int:
+    """Peak device bytes of a device build over ``n_bases`` genome bases
+    followed by the hash assembly the auto probe may run on it (at most
+    one distinct key per base; the 16 B/row sorted table stays resident
+    under the assembly)."""
+    gp = pad_rows(n_bases)
+    return max(gp * BUILD_BYTES_PER_ROW,
+               16 * gp + _hash_bytes(_hash_buckets(n_bases), gp))
+
+
 def device_hash_table(built: dict):
     """Build the 16-slot device hash table from ``device_build_tables``
-    output; returns (table, stash) device arrays or None if the stash
-    cannot be satisfied (pathological key sets)."""
-    u = built["num_kmers"]
-    nb = 1 << max(int(max(u / HASH_LAMBDA, 1)) - 1, 1).bit_length()
-    # HBM pre-check: attempting an oversized table raises a
-    # ResourceExhausted that can poison subsequent dispatches in this
-    # process, so don't try -- the ~16 GB v5e budget leaves ~10 GB for
-    # the table + scatter workspace next to the sorted build products
+    output; returns (table, stash) device arrays, or None when the table
+    does not fit the device-memory budget or the stash cannot be
+    satisfied (pathological key sets)."""
+    nb = _hash_buckets(built["num_kmers"])
     n = int(built["klo"].shape[0])
-    budget = int(os.environ.get("SHOTGUN_TPU_HASH_HBM_BUDGET",
-                                10_000_000_000))
+    budget = device_memory_budget()
     try:
         for _ in range(3):
-            # re-checked on every stash-overflow doubling, not just the
-            # first attempt: a retry at 2-4x the vetted nb would exceed
-            # the budget the pre-check exists to enforce
-            if nb * HASH_SLOTS * 16 + 8 * n * 4 > budget:
+            # re-checked on every stash-overflow doubling: a retry at 2-4x
+            # the vetted nb must fit the budget too
+            if budget is not None and _hash_bytes(nb, n) > budget:
                 return None
             table, stash, n_stash_d = _hash_table_from_rows(
                 built["klo"], built["khi"], built["sid"], built["gc"],
@@ -488,14 +524,10 @@ def device_hash_table(built: dict):
             if int(jax.device_get(n_stash_d)) <= STASH_PAD:
                 return table, stash
             nb *= 2
-    except Exception as exc:
-        # HBM exhaustion at extreme table sizes (or a compile failure):
-        # the sorted table still serves -- callers keep the sort probe
-        import os as _os
-        import sys as _sys
-
-        if _os.environ.get("SHOTGUN_TPU_DEBUG") == "1":
-            print(f"device_hash_table fallback: {exc!r}"[:500],
-                  file=_sys.stderr)
+    except jax.errors.JaxRuntimeError as exc:
+        # out of device memory despite the budget (other live arrays):
+        # the sorted table still serves.  Anything else is a fault.
+        if "RESOURCE_EXHAUSTED" not in str(exc):
+            raise
         return None
     return None

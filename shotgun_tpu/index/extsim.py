@@ -13,9 +13,9 @@ and sort order (dict-overwrite behavior, reference kmer.py:164-176).
 Scaling design (SURVEY.md §7.1 L6): the O(G²) pairwise intersection work
 is one overlap-count matrix ``O = M @ M.T`` over the 0/1 k-mer membership
 matrix M [G, U].  M is streamed in k-mer chunks so memory stays bounded;
-large G runs the chunks on the accelerator's MXU (bf16 inputs -- 0/1 is
-exact in bf16 -- with float32 accumulation, exact below 2^24 shared
-k-mers per pair).  Only the inherently-sequential greedy keep loop stays
+large G runs the chunks on the accelerator's matrix units (bf16 inputs --
+0/1 is exact in bf16 -- with float32 accumulation, exact below 2^24
+shared k-mers per pair).  Only the inherently-sequential greedy keep loop stays
 on host, vectorized over the kept list per candidate.
 """
 
@@ -82,7 +82,7 @@ def _overlap_matrix_device(
 ) -> np.ndarray:
     """Accelerator path: k-mer chunks scatter onto a [G, C] one-hot on
     device, bf16 @ bf16.T accumulates the [G, G] counts in float32 on the
-    MXU.  Pairs ship once; per-chunk slices are padded to a fixed width so
+    matrix units.  Pairs ship once; per-chunk slices are padded to a fixed width so
     the whole sweep is one lax.scan."""
     import jax
     import jax.numpy as jnp

@@ -1,10 +1,10 @@
 """Single-gather hash table for device-side k-mer probing.
 
-TPU-first design constraint: XLA's dynamic gather costs ~30ms per million
-rows on v5e regardless of row width, so the probe must issue exactly ONE
-bucket gather per query.  The build guarantees it: every key lives in its
-primary bucket; keys that would overflow go to a tiny *stash* that the
-probe resolves with an all-lanes broadcast compare (VPU work, no gather).
+Design constraint: the probe issues exactly ONE bucket-row gather per
+query, one contiguous row of ``slots * 16`` bytes.  The build guarantees
+it: every key lives in its primary bucket; keys that would overflow go to
+a tiny *stash* that the probe resolves with a broadcast compare (no
+gather).
 If the stash exceeds its cap the table doubles and rebuilds -- for random
 k-mer keys at the default sizing the stash is almost always empty.
 
@@ -28,10 +28,9 @@ EMPTY = np.uint32(0xFFFFFFFF)
 STASH_CAP = 64
 
 #: initial expected keys-per-bucket by slot width -- sized so bucket
-#: overflow (-> stash) is vanishingly rare; measured on v5e the row
-#: gather is latency-bound (~30 ns/row regardless of row width), so
-#: narrow buckets + low load win for small tables while wide buckets +
-#: high load (64 B/key at 16 slots) keep 100M-key tables inside HBM
+#: overflow (-> stash) is vanishingly rare; narrow buckets + low load
+#: suit small tables while wide buckets + high load (64 B/key at 16
+#: slots) keep 100M-key tables inside device memory
 _TARGET_LAMBDA = {2: 0.03, 4: 0.25, 8: 2.0, 16: 4.0}
 
 

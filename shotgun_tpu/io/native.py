@@ -1,16 +1,24 @@
 """ctypes bindings for the native strict parser (native/shotgun_io.cpp).
 
-Builds the shared library on demand with the repo Makefile (cached).  The
-native scanner is byte-exact with the regex engine for ASCII input and
-returns structured error codes that map onto the same exception types and
-messages; non-ASCII input or a missing toolchain falls back to the Python
-regex path transparently.
+Builds the shared library on demand with the repo Makefile.  The library
+is compiled with ``-march=native``, so a build is reused only where its
+stamp -- a hash of the sources, the Makefile, the machine type and the
+CPU's feature flags, written next to the ``.so`` -- matches this host; a
+copy of the tree moved to another machine rebuilds instead of loading a
+binary that may use instructions this CPU lacks.  The native scanner is
+byte-exact with the regex engine for ASCII input and returns structured
+error codes that map onto the same exception types and messages;
+non-ASCII input or a missing toolchain falls back to the Python regex
+path transparently (``available()`` says which path a process got).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
 from typing import Optional, Tuple
 
@@ -18,7 +26,10 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libshotgun_io.so")
+_LIB_NAME = "libshotgun_io.so"
+_LIB_PATH = os.path.join(_NATIVE_DIR, _LIB_NAME)
+_STAMP_PATH = _LIB_PATH + ".stamp"
+_SOURCES = ("shotgun_io.cpp", "kmer_build.cpp", "Makefile")
 
 STATUS_OK = 0
 STATUS_NO_RECORDS = 1
@@ -39,15 +50,7 @@ def _load() -> Optional[ctypes.CDLL]:
         _lib_failed = True
         return None
     try:
-        srcs = [os.path.join(_NATIVE_DIR, f)
-                for f in ("shotgun_io.cpp", "kmer_build.cpp")]
-        if (not os.path.exists(_LIB_PATH)
-                or any(os.path.getmtime(_LIB_PATH) < os.path.getmtime(s)
-                       for s in srcs)):
-            subprocess.run(
-                ["make", "-s"], cwd=_NATIVE_DIR, check=True,
-                capture_output=True, timeout=120,
-            )
+        _ensure_built()
         lib = ctypes.CDLL(_LIB_PATH)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -112,6 +115,70 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def _cpu_flags() -> str:
+    """The CPU feature flags the kernel reports (empty where unknown)."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith(("flags", "Features")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return ""
+
+
+def build_stamp(native_dir: str, machine: Optional[str] = None,
+                cpu_flags: Optional[str] = None) -> str:
+    """Identity of a build: sources + Makefile + machine + CPU flags."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(native_dir, name), "rb") as fh:
+            h.update(name.encode() + b"\0" + fh.read() + b"\0")
+    h.update((machine if machine is not None
+              else platform.machine()).encode() + b"\0")
+    h.update((cpu_flags if cpu_flags is not None else _cpu_flags()).encode())
+    return h.hexdigest()
+
+
+def needs_rebuild(lib_path: str, stamp_path: str, stamp: str) -> bool:
+    """True unless ``lib_path`` exists and was built with ``stamp``."""
+    if not os.path.exists(lib_path):
+        return True
+    try:
+        with open(stamp_path) as fh:
+            return fh.read().strip() != stamp
+    except OSError:
+        return True
+
+
+def _ensure_built() -> None:
+    """Build the library unless a build with this host's stamp exists.
+
+    Serialized by a lock file so concurrent processes (test workers) do
+    not compile over each other; the fresh library is renamed into place
+    so no process can load a half-written file."""
+    stamp = build_stamp(_NATIVE_DIR)
+    if not needs_rebuild(_LIB_PATH, _STAMP_PATH, stamp):
+        return
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not needs_rebuild(_LIB_PATH, _STAMP_PATH, stamp):
+            return
+        tmp = f"{_LIB_NAME}.tmp{os.getpid()}"
+        try:
+            subprocess.run(
+                ["make", "-s", "-B", f"TARGET={tmp}"], cwd=_NATIVE_DIR,
+                check=True, capture_output=True, timeout=300,
+            )
+            os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+        finally:
+            if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+                os.remove(os.path.join(_NATIVE_DIR, tmp))
+        with open(_STAMP_PATH + ".tmp", "w") as fh:
+            fh.write(stamp)
+        os.replace(_STAMP_PATH + ".tmp", _STAMP_PATH)
 
 
 def _as_u8(buf: bytes) -> Tuple[ctypes.POINTER(ctypes.c_uint8), int]:

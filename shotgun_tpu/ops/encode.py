@@ -1,64 +1,18 @@
 """Numeric k-mer encoding shared by host (numpy) and device (jax.numpy).
 
-A k-mer (k <= 31) is 2-bit packed into a (lo, hi) uint32 pair -- TPUs have
-no native 64-bit integers, so the pair representation keeps every hot op in
-native uint32 lanes.  The hash used for table placement is a two-word
+A k-mer (k <= 31) is 2-bit packed into a (lo, hi) uint32 pair, so every
+hot op stays in 32-bit integers without enabling ``jax_enable_x64``
+process-wide.  The hash used for table placement is a two-word
 xorshift-multiply mix; host table *build* and device *probe* must agree
 bit-for-bit, so both call these functions with their array module.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Tuple
 
 import jax.numpy as jnp
 import numpy as np
-
-#: SHOTGUN_TPU_PALLAS routes the hot window ops through the Pallas
-#: kernels in ops/pallas/kernels.py instead of the XLA lowerings:
-#:   "1"    -> all three kernels (encode, qsum, resolve)
-#:   "0"    -> none
-#:   unset  -> auto: the bucket-row resolve only, and only on real TPU
-#:             hardware, where it measures 1.8x faster than the XLA
-#:             lowering (v5e A/B, BENCH r3); encode/qsum stay on XLA,
-#:             which wins for both.
-#: Frozen at first use: jit caches do not key on env vars, so a
-#: mid-process change must not silently retarget already-compiled shapes
-#: (ADVICE.md round 1).
-_PALLAS_ENABLED = None
-_PALLAS_RESOLVE = None
-
-
-def pallas_enabled() -> bool:
-    """All-kernels dispatch (encode + qsum + resolve): explicit =1 only."""
-    global _PALLAS_ENABLED
-    if _PALLAS_ENABLED is None:
-        _PALLAS_ENABLED = os.environ.get("SHOTGUN_TPU_PALLAS", "") == "1"
-    return _PALLAS_ENABLED
-
-
-def pallas_resolve_enabled() -> bool:
-    """Resolve-kernel dispatch: explicit =1, or auto-on for real TPU."""
-    global _PALLAS_RESOLVE
-    if _PALLAS_RESOLVE is None:
-        mode = os.environ.get("SHOTGUN_TPU_PALLAS", "")
-        if mode == "1":
-            _PALLAS_RESOLVE = True
-        elif mode == "0":
-            _PALLAS_RESOLVE = False
-        else:
-            import jax
-
-            _PALLAS_RESOLVE = "tpu" in jax.devices()[0].platform.lower()
-    return _PALLAS_RESOLVE
-
-
-def pallas_interpret() -> bool:
-    """Interpret mode off-TPU so the dispatch path is testable on CPU."""
-    import jax
-
-    return "tpu" not in jax.devices()[0].platform.lower()
 
 # splitmix64-derived odd constants
 _C1 = 0x85EBCA6B
@@ -88,10 +42,6 @@ def rolling_encode_jnp(codes: jnp.ndarray, k: int) -> Tuple[jnp.ndarray, jnp.nda
     b, l = codes.shape
     w = l - k + 1
     assert w >= 1, "batch length must be >= k"
-    if pallas_enabled():
-        from shotgun_tpu.ops.pallas.kernels import rolling_encode_pallas
-
-        return rolling_encode_pallas(codes, k, interpret=pallas_interpret())
     lo = jnp.zeros((b, w), dtype=jnp.uint32)
     hi = jnp.zeros((b, w), dtype=jnp.uint32)
     for j in range(k):
@@ -104,10 +54,10 @@ def rolling_encode_jnp(codes: jnp.ndarray, k: int) -> Tuple[jnp.ndarray, jnp.nda
 def unpack_codes_2bit(packed: jnp.ndarray) -> jnp.ndarray:
     """[B, L/4] uint8 (4 bases/byte, little bit-pairs) -> [B, L] uint8.
 
-    Host->device transfer is the end-to-end bottleneck on remote-dispatch
-    runtimes; reads contain no N (the FASTQ parser rejects it, reference
-    records.py:262), so 2-bit packing is lossless and cuts the codes
-    stream 4x.  The unpack is a handful of VPU shifts inside the jit.
+    Reads contain no N (the FASTQ parser rejects it, reference
+    records.py:262), so 2-bit packing is lossless and cuts the
+    host->device codes transfer 4x.  The unpack is a handful of shifts
+    inside the jit.
     """
     b, p = packed.shape
     u = packed.astype(jnp.uint32)[:, :, None]
@@ -168,10 +118,6 @@ def window_quality_sums(qual: jnp.ndarray, k: int) -> jnp.ndarray:
     algebraically identical for integer thresholds)."""
     b, l = qual.shape
     w = l - k + 1
-    if pallas_enabled():
-        from shotgun_tpu.ops.pallas.kernels import window_qsums_pallas
-
-        return window_qsums_pallas(qual, k, interpret=pallas_interpret())
     cs = jnp.cumsum(qual.astype(jnp.int32), axis=1)
     zeros = jnp.zeros((b, 1), dtype=jnp.int32)
     cs = jnp.concatenate([zeros, cs], axis=1)  # [B, L+1]

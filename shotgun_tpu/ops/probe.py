@@ -1,37 +1,23 @@
 """Vectorized single-gather hash probe: read k-mer windows -> genome sets.
 
 Device half of index/hashtable.py.  Exactly one dynamic gather per window
-(the whole bucket row), plus a broadcast compare against the tiny overflow
-stash (pure VPU, typically compiled away because the stash is empty).
+(the whole bucket row, ``slots * 16`` contiguous bytes), a key compare and
+slot reduction over the row, plus a broadcast compare against the tiny
+overflow stash (typically compiled away because the stash is empty).
 
-The probe is deliberately split into two dispatches:
-
-* ``hash_probe_gather`` -- rolling encode + bucket index + the row gather,
-  and NOTHING else.  On TPU, XLA fuses a large gather with its elementwise
-  consumers into one loop fusion that executes ~300x slower than the
-  standalone gather kernel (measured on v5e: 28 ms vs 0.09 ms per
-  8192x120-window batch), and on remote-dispatch runtimes one such
-  executable degrades every subsequent dispatch in the session.  Keeping
-  the gather standalone keeps every executable on the fast path.  See
-  tests/tools/bench_poison.py for the measurement harness.
-* ``resolve_rows`` -- the key compare + slot reduction, pure VPU work,
-  traced into the caller's (gather-free) jit.
-
-``probe_kmers`` composes both in one trace for callers that need the fused
-form (CPU tests, oracle comparisons); the production pipeline uses the
-split form.
+``probe_kmers`` is one trace with no fences, so XLA may fuse the row
+gather into the compare and the slot reductions instead of writing the
+gathered [B, W, slots, 4] rows to device memory and reading them back.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 
-from shotgun_tpu.index.hashtable import SLOTS
-from shotgun_tpu.ops.encode import mix32, rolling_encode_jnp
+from shotgun_tpu.ops.encode import mix32
 
 _EMPTY32 = jnp.uint32(0xFFFFFFFF)
 
@@ -43,31 +29,6 @@ class HashTableDev(NamedTuple):
     stash: jnp.ndarray   # uint32 [stash_n, 4]
 
 
-@functools.partial(jax.jit, static_argnames=("k", "packed"))
-def hash_probe_gather(
-    table: jnp.ndarray,   # uint32 [n_buckets, slots, 4]
-    codes: jnp.ndarray,   # uint8  [B, L] (or [B, L/4] when packed)
-    *,
-    k: int,
-    packed: bool = False,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Stage 1 of the split probe: one standalone bucket-row gather.
-
-    Returns (rows [B, W, slots, 4] uint32, bidx [B, W] int32).  The k-mer
-    (lo, hi) words are recomputed by the consumer (a handful of shifts --
-    far cheaper than shipping two more [B, W] buffers between dispatches).
-    """
-    if packed:
-        from shotgun_tpu.ops.encode import unpack_codes_2bit
-
-        codes = unpack_codes_2bit(codes)
-    lo, hi = rolling_encode_jnp(codes, k)
-    n_buckets = table.shape[0]
-    bidx = (mix32(lo, hi, jnp) & jnp.uint32(n_buckets - 1)).astype(jnp.int32)
-    rows = jnp.take(table, bidx, axis=0)
-    return rows, bidx
-
-
 def resolve_rows(
     rows: jnp.ndarray,    # uint32 [B, W, slots, 4] pre-gathered bucket rows
     bidx: jnp.ndarray,    # int32  [B, W] bucket indices (for slot_pos)
@@ -75,7 +36,7 @@ def resolve_rows(
     lo: jnp.ndarray,      # uint32 [B, W]
     hi: jnp.ndarray,      # uint32 [B, W]
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Stage 2 of the split probe: key compare + slot reduce (VPU only).
+    """Key compare + slot reduce over pre-gathered bucket rows.
 
     Returns (hit [B,W] bool, set_id [B,W] int32, genome_count [B,W] int32,
     slot_pos [B,W] int32).  ``slot_pos`` is the flat table slot of the
@@ -83,30 +44,17 @@ def resolve_rows(
     one int32 instead of the (lo, hi) pair.  Misses have set_id == -1,
     genome_count == 0, slot_pos == -1.
     """
-    from shotgun_tpu.ops.encode import (
-        pallas_enabled,
-        pallas_interpret,
-        pallas_resolve_enabled,
+    slots = rows.shape[2]
+    match = (
+        (rows[..., 0] == lo[..., None])
+        & (rows[..., 1] == hi[..., None])
+        & (rows[..., 2] != _EMPTY32)
     )
-
-    if pallas_enabled() or pallas_resolve_enabled():
-        from shotgun_tpu.ops.pallas.kernels import resolve_rows_pallas
-
-        found_sid, found_gc, found_pos = resolve_rows_pallas(
-            rows, bidx, lo, hi, interpret=pallas_interpret()
-        )
-    else:
-        slots = rows.shape[2]
-        match = (
-            (rows[..., 0] == lo[..., None])
-            & (rows[..., 1] == hi[..., None])
-            & (rows[..., 2] != _EMPTY32)
-        )
-        found_sid = jnp.min(jnp.where(match, rows[..., 2], _EMPTY32), axis=-1)
-        found_gc = jnp.max(jnp.where(match, rows[..., 3], jnp.uint32(0)), axis=-1)
-        slot_iota = jax.lax.broadcasted_iota(jnp.uint32, (1, 1, slots), 2)
-        flat = bidx.astype(jnp.uint32)[..., None] * jnp.uint32(slots) + slot_iota
-        found_pos = jnp.min(jnp.where(match, flat, _EMPTY32), axis=-1)
+    found_sid = jnp.min(jnp.where(match, rows[..., 2], _EMPTY32), axis=-1)
+    found_gc = jnp.max(jnp.where(match, rows[..., 3], jnp.uint32(0)), axis=-1)
+    slot_iota = jax.lax.broadcasted_iota(jnp.uint32, (1, 1, slots), 2)
+    flat = bidx.astype(jnp.uint32)[..., None] * jnp.uint32(slots) + slot_iota
+    found_pos = jnp.min(jnp.where(match, flat, _EMPTY32), axis=-1)
 
     stash_n = stash.shape[0]
     if stash_n:
@@ -150,18 +98,8 @@ def probe_kmers(
     lo: jnp.ndarray,         # uint32 [B, W]
     hi: jnp.ndarray,         # uint32 [B, W]
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Fused probe (gather + resolve in one trace).
-
-    ``optimization_barrier`` fences keep the row gather a standalone
-    kernel inside larger jits -- without them XLA fuses the gather with
-    its elementwise consumers into a loop fusion that runs ~300x slower
-    (see module docstring).  A/B on v5e: barrier-fenced fused == the
-    two-dispatch split (65.6 vs 67.5 ms per 16384x130 batch), so the
-    streaming fold programs can trace this form directly.
-    """
+    """Probe every window: bucket-row gather + resolve in one trace."""
     n_buckets = table.shape[0]
     bidx = (mix32(lo, hi, jnp) & jnp.uint32(n_buckets - 1)).astype(jnp.int32)
-    bidx_b = jax.lax.optimization_barrier(bidx)
-    rows = jnp.take(table, bidx_b, axis=0)  # [B, W, slots, 4]
-    rows = jax.lax.optimization_barrier(rows)
+    rows = jnp.take(table, bidx, axis=0)  # [B, W, slots, 4]
     return resolve_rows(rows, bidx, stash, lo, hi)

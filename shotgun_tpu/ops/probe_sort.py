@@ -6,11 +6,11 @@ NamedTuples and the host array extractors shared by the probe, the
 range-partitioned TP form (parallel/table_sharded.py) and the
 device-side builder (index/device_build.py).
 
-Cost model (why a sorted table at all): XLA's dynamic gather on TPU
-executes as a latency-bound per-row loop (~30 ns/row), while
-``lax.sort`` is bandwidth-bound (~9 ns/row/operand on v5e) -- merging
-table and query keys in one sort beats gather-based probing up to ~8M
-distinct keys, at 16 B/key instead of the bucket hash's 64.
+Cost model (why a sorted table at all): merging table and query keys in
+one bandwidth-bound ``lax.sort`` needs no gather at all, and the table
+takes 16 B/key instead of the bucket hash's 64.  Its per-batch cost grows
+with the table, so above ``KmerReference.AUTO_HASH_MIN_KEYS`` distinct
+keys the auto probe switches to the hash table.
 """
 
 from __future__ import annotations

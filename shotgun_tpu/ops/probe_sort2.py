@@ -26,8 +26,7 @@ The probe is one ``lax.sort`` join:
 
 Zero gathers, zero scatters: sorts + cumulative maxima + elementwise only.
 
-v3 payload economy (the sorts are ~95% of align time on v5e -- r4 stage
-profile): query rows carry their restore position ``val`` IN the first
+v3 payload economy (the sorts dominate this probe's time): query rows carry their restore position ``val`` IN the first
 carry word (table words have bit 30 set, so they dominate any val under
 the cummax and a query row's own word still reads back as its val), the
 (sid, gc) payload chunks share one bit stream, and the restore sort packs

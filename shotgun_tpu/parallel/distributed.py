@@ -2,8 +2,8 @@
 
 The reference has no distributed backend at all (SURVEY.md §2.2); this is
 the new-build equivalent: ``jax.distributed`` for process bootstrap and a
-global data mesh whose collectives ride ICI within a slice and DCN across
-hosts.  Per-genome count vectors and filter counters merge with exact
+global data mesh whose collectives ride the devices' interconnect within a
+host and the network across hosts.  Per-genome count vectors and filter counters merge with exact
 integer ``psum``/``pmin`` (parallel/mesh.py), so dumpalign output is
 host-count invariant.
 
@@ -36,8 +36,8 @@ def initialize(
     process_id: Optional[int] = None,
 ) -> None:
     """``jax.distributed.initialize`` passthrough; no-op for single
-    process.  With no arguments, JAX auto-detects cluster environment
-    variables (e.g. on Cloud TPU pods)."""
+    process.  With no arguments, JAX auto-detects a cluster environment
+    where one is present (e.g. SLURM)."""
     if num_processes == 1:
         return
     jax.distributed.initialize(
@@ -52,8 +52,8 @@ def initialize_from_env() -> Optional[Mesh]:
 
     * ``SHOTGUN_TPU_NPROCS`` (with ``SHOTGUN_TPU_PROC_ID`` and optional
       ``SHOTGUN_TPU_COORDINATOR``, default ``localhost:29400``): multi-
-      process launch -- one CLI process per host, collectives over
-      ICI/DCN (Gloo on CPU), host 0 prints the summary.
+      process launch -- one CLI process per host, collectives over the
+      interconnect (Gloo on CPU), host 0 prints the summary.
     * ``SHOTGUN_TPU_MESH=data``: single-process mesh over all local
       devices (multi-chip, one host).
     * neither set: returns None (plain single-device path).

@@ -6,11 +6,9 @@ vectors and filter counters merge with exact integer ``psum`` collectives
 and first-encounter order keys with ``pmin`` -- so dumpalign output is
 invariant to the shard count by construction.
 
-The hash-probe path keeps the dispatch split of models/pipeline.py under
-``shard_map``: a first program does the shard-local standalone bucket
-gather, a second gather-free program resolves, classifies, and psum-merges
-(see ops/probe.py for why the gather must not fuse with its consumers).
-The sort-merge probe is gather-free and runs as one program.
+Both probe structures run as one program: the shard-local align
+(``models.pipeline.align_batch_core``) and the psum-merge under one
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -26,10 +24,7 @@ from shotgun_tpu.models.pipeline import (
     AggResult,
     aggregate_batch,
     align_batch_core,
-    core_from_probe,
 )
-from shotgun_tpu.ops.encode import mix32, rolling_encode_jnp, unpack_codes_2bit
-from shotgun_tpu.ops.probe import HashTableDev, resolve_rows
 
 
 def make_mesh(devices: Optional[Sequence] = None, axis: str = "data") -> Mesh:
@@ -59,120 +54,20 @@ def _lifted_psum_agg(local: AggResult, rows_per_shard: int, r: int) -> AggResult
     )
 
 
-@functools.partial(jax.jit, static_argnames=("mesh", "k", "packed"))
-def _sharded_hash_gather(table, codes, *, mesh: Mesh, k: int,
-                         packed: bool = False):
-    """Stage 1 under shard_map: shard-local standalone bucket-row gather."""
-    def fn(table, codes):
-        if packed:
-            codes = unpack_codes_2bit(codes)
-        lo, hi = rolling_encode_jnp(codes, k)
-        nb = table.shape[0]
-        bidx = (mix32(lo, hi, jnp) & jnp.uint32(nb - 1)).astype(jnp.int32)
-        rows = jnp.take(table, bidx, axis=0)
-        return rows, bidx
-
-    return jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(P(), P("data")),
-        check_vma=False,  # pallas_call in the body has no vma annotations
-        out_specs=(P("data"), P("data")),
-    )(table, codes)
-
-
+@functools.partial(
+    jax.jit,
+    static_argnames=("mesh", "k", "has_mrq", "has_mkq", "has_mg", "packed"),
+)
 def align_aggregate_sharded(
-    probe_tab,
-    set_member,
-    codes,
-    qual,
-    lengths,
-    row_valid,
-    m,
-    p,
-    mrq,
-    mkq,
-    mg,
-    *,
-    mesh: Mesh,
-    k: int,
-    has_mrq: bool,
-    has_mkq: bool,
-    has_mg: bool,
-    packed: bool = False,
-) -> AggResult:
-    """Shard reads over the mesh's 'data' axis; return globally-merged
-    aggregation (identical to single-device ``aggregate_batch``)."""
-    if isinstance(probe_tab, HashTableDev):
-        rows, bidx = _sharded_hash_gather(
-            probe_tab.table, codes, mesh=mesh, k=k, packed=packed)
-        return _sharded_finish_hash(
-            rows, bidx, probe_tab.stash, set_member, codes, qual, lengths,
-            row_valid, m, p, mrq, mkq, mg,
-            mesh=mesh, k=k, has_mrq=has_mrq, has_mkq=has_mkq, has_mg=has_mg,
-            packed=packed,
-        )
-    return _sharded_single(
-        probe_tab, set_member, codes, qual, lengths, row_valid,
-        m, p, mrq, mkq, mg,
-        mesh=mesh, k=k, has_mrq=has_mrq, has_mkq=has_mkq, has_mg=has_mg,
-        packed=packed,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "k", "has_mrq", "has_mkq", "has_mg", "packed"),
-    donate_argnums=(0,),
-)
-def _sharded_finish_hash(
-    rows, bidx, stash, set_member, codes, qual, lengths, row_valid,
-    m, p, mrq, mkq, mg,
-    *,
-    mesh: Mesh, k: int, has_mrq: bool, has_mkq: bool, has_mg: bool,
-    packed: bool = False,
-) -> AggResult:
-    n_shards = mesh.shape["data"]
-    rows_per_shard = codes.shape[0] // n_shards
-    r = set_member.shape[1]
-
-    def fn(rows, bidx, stash, set_member, codes, qual, lengths, row_valid,
-           m, p, mrq, mkq, mg):
-        if packed:
-            codes = unpack_codes_2bit(codes)
-        lo, hi = rolling_encode_jnp(codes, k)
-        probe_res = resolve_rows(rows, bidx, stash, lo, hi)
-        res = core_from_probe(
-            probe_res, set_member, qual, lengths, m, p, mrq, mkq, mg,
-            k=k, has_mrq=has_mrq, has_mkq=has_mkq, has_mg=has_mg,
-        )
-        local = aggregate_batch(res, row_valid)
-        return _lifted_psum_agg(local, rows_per_shard, r)
-
-    return jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(
-            P("data"), P("data"), P(), P(),
-            P("data"), P("data"), P("data"), P("data"),
-            P(), P(), P(), P(), P(),
-        ),
-        check_vma=False,  # pallas_call in the body has no vma annotations
-        out_specs=P(),
-    )(rows, bidx, stash, set_member, codes, qual, lengths, row_valid,
-      m, p, mrq, mkq, mg)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "k", "has_mrq", "has_mkq", "has_mg", "packed"),
-)
-def _sharded_single(
     probe_tab, set_member, codes, qual, lengths, row_valid,
     m, p, mrq, mkq, mg,
     *,
     mesh: Mesh, k: int, has_mrq: bool, has_mkq: bool, has_mg: bool,
     packed: bool = False,
 ) -> AggResult:
-    """One-program path (sort-merge probe: gather-free by construction)."""
+    """Shard reads over the mesh's 'data' axis; return globally-merged
+    aggregation (identical to single-device ``aggregate_batch``):
+    shard-local align + aggregate, psum/pmin-merged, in one program."""
     n_shards = mesh.shape["data"]
     rows_per_shard = codes.shape[0] // n_shards
     r = set_member.shape[1]
@@ -196,7 +91,6 @@ def _sharded_single(
             P("data"), P("data"), P("data"), P("data"),
             P(), P(), P(), P(), P(),
         ),
-        check_vma=False,  # pallas_call in the body has no vma annotations
         out_specs=P(),
     )(probe_tab, set_member, codes, qual, lengths, row_valid,
       m, p, mrq, mkq, mg)

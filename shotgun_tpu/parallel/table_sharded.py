@@ -1,6 +1,6 @@
 """Tensor-parallel probe: k-mer table sharded across a 'table' mesh axis.
 
-When the k-mer database exceeds per-chip HBM, the sorted key table is
+When the k-mer database exceeds one device's memory, the sorted key table is
 range-partitioned across the 'table' axis of a ('data', 'table') mesh
 (SURVEY.md §2.2 TP row).  Queries are replicated along 'table' (reads are
 already sharded along 'data'): each device sort-joins the full query set
@@ -11,7 +11,7 @@ making the in-sort first-occurrence dedupe shard-local-correct.
 
 Communication per batch: the query broadcast is free (reads are device-
 put replicated along 'table' up front) and the merge is one integer
-``pmax`` of four [B/D, W] arrays over ICI.  Each shard's sort shrinks to
+``pmax`` of four [B/D, W] arrays over the interconnect.  Each shard's sort shrinks to
 U/T + N elements, so table capacity scales linearly with the axis size
 while per-batch cost stays flat.
 
@@ -216,7 +216,6 @@ def align_aggregate_table_sharded(
             P("data", None), P("data", None), P("data"), P("data"),
             P(), P(), P(), P(), P(),
         ),
-        check_vma=False,  # pallas_call in the body has no vma annotations
         out_specs=P(),
     )(tab, set_member, codes, qual, lengths, row_valid,
       m, p, mrq, mkq, mg)

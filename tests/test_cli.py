@@ -167,7 +167,7 @@ def test_dumpalign_without_inputs_errors():
 
 def test_gzip_inputs_match_plain_golden(tmp_path, corpus):
     """.fa.gz / .fq.gz inputs produce byte-identical dumpalign output
-    (reference data_file.py:117-128 gzip transparency; VERDICT r1 item 9)."""
+    (reference data_file.py:117-128 gzip transparency)."""
     import gzip as _gzip
 
     fa, fq = corpus
@@ -220,7 +220,7 @@ def test_user_input_valueerror_exits_cleanly(corpus):
 
 def test_internal_valueerror_is_not_swallowed(tmp_path, corpus):
     """An unexpected internal ValueError must produce a traceback, not a
-    clean user-error exit (VERDICT r4 weak #5): the CLI catches only the
+    clean user-error exit: the CLI catches only the
     UserInputError subclass, unlike the reference's bare-ValueError
     funnel."""
     fa, fq = corpus

@@ -116,7 +116,7 @@ def test_device_build_align_summary_matches():
 
 def test_device_build_many_records():
     """R > 64: the v2 build is general in the record count (the r4 build
-    capped R at 64 via its two-word mask scan; VERDICT r4 next #2)."""
+    capped R at 64 via its two-word mask scan)."""
     rng = np.random.default_rng(7)
     genomes = synth_genomes(rng, 200, 300)
     _check_equal(genomes, 21)

@@ -149,7 +149,7 @@ def test_write_summary_streams_byte_identical():
     """The streaming dumpref writer (KmerReference.write_summary) must
     byte-match json.dumps(get_summary(), indent=4) -- including duplicate
     descriptions, genomes shorter than k, all-N genomes, EXTSIM, and
-    chunk boundaries (VERDICT r4 next #3; reference kmer.py:300-329)."""
+    chunk boundaries (reference kmer.py:300-329)."""
     import io
     import json as _json
 

@@ -364,7 +364,7 @@ def test_vpacked_valid_multichunk_thread_split():
 
 
 def test_prefetch_iter_consumer_abandon_cleanup():
-    """ADVICE r3 #2: abandoning the consumer mid-stream must cancel the
+    """Abandoning the consumer mid-stream must cancel the
     producer (no blocked put), drain the queue, and close the source."""
     import threading
     import time

@@ -109,52 +109,3 @@ def test_sharded_summary_matches_host_path():
     sharded.align_packed_reads(batch, batch_size=48, mesh=mesh,
                                store_reads=False)
     assert sharded.get_summary() == plain.get_summary()
-
-
-def test_sharded_with_pallas_dispatch(monkeypatch):
-    """SHOTGUN_TPU_PALLAS=1 inside the shard_map bodies (ADVICE.md r2 #4:
-    the flag also reroutes rolling_encode/window_quality_sums within the
-    sharded aggregation, previously untested).  Interpret mode on CPU;
-    the sharded+pallas result must equal the plain sharded result."""
-    import shotgun_tpu.ops.encode as encode_mod
-
-    ref, batch = _setup(seed=5, n_reads=32)
-    k = ref.index.k
-    probe_tab = ref.device_probe_tables()
-    member = ref.set_member_dense()
-    b = 32
-    codes = batch.codes[:b]
-    qual = batch.qual[:b]
-    lengths = batch.lengths[:b].astype(np.int32)
-    row_valid = np.ones(b, dtype=bool)
-
-    mesh = make_mesh(jax.devices()[:4])
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    rep = NamedSharding(mesh, P())
-    probe_rep = jax.tree.map(lambda a: jax.device_put(a, rep), probe_tab)
-    (member_d,) = replicate(mesh, member)
-    codes_d, qual_d, len_d, rv_d = shard_read_arrays(
-        mesh, codes, qual, lengths, row_valid)
-
-    def run():
-        jax.clear_caches()  # flag is read at trace time
-        return align_aggregate_sharded(
-            probe_rep, member_d, codes_d, qual_d, len_d, rv_d,
-            jnp.int32(1), jnp.int32(1), jnp.int32(0), jnp.int32(60),
-            jnp.int32(4),
-            mesh=mesh, k=k, has_mrq=False, has_mkq=True, has_mg=True,
-        )
-
-    agg_xla = run()
-    agg_xla = type(agg_xla)(*(np.asarray(x) for x in agg_xla))
-
-    monkeypatch.setattr(encode_mod, "_PALLAS_ENABLED", True)
-    monkeypatch.setattr(encode_mod, "_PALLAS_RESOLVE", True)
-    agg_pl = run()
-    try:
-        for field in agg_xla._fields:
-            np.testing.assert_array_equal(
-                np.asarray(getattr(agg_xla, field)),
-                np.asarray(getattr(agg_pl, field)), err_msg=field)
-    finally:
-        jax.clear_caches()  # do not leak pallas-traced executables

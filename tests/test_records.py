@@ -173,7 +173,7 @@ def test_fastq_space_line_dots_allowed():
     assert list(p)[0]["space"] == "..."
 
 
-# --- reference-ported parity tests (VERDICT.md round 1, item 9) -------------
+# --- reference-ported parity tests ------------------------------------------
 
 class RefMockParser(SchemaParser):
     """Mirror of the reference's MockRecordContainer schema

@@ -1,6 +1,6 @@
 """Large genome-count classification: the chunk-scan set reduction.
 
-VERDICT.md round 1 item 4: the round-1 pipeline unrolled the set-table
+An early pipeline unrolled the set-table
 reduction (compile blow-up past ~1k sets) and fell back to a [B, W, R]
 gather (OOM at thousands of genomes).  These tests build a G=4096-genome
 reference whose set table is wide enough to force the lax.scan path and
@@ -190,7 +190,7 @@ def test_scan_path_with_filters_matches_oracle(big_corpus):
 
 
 def test_capacity_math_at_bulk_scale():
-    """Table-capacity math at real-metagenomics sizes (VERDICT r3 #6):
+    """Table-capacity math at real-metagenomics sizes:
     shape buckets, carry-word layout, and sharding pads must all hold at
     a 100 Mbp-class DB (tens of millions of distinct k-mers) without
     silent overflow."""
@@ -216,8 +216,9 @@ def test_capacity_math_at_bulk_scale():
     # the full payload reconstructs from n_words pb-bit chunks
     assert n_words * pb >= payload_bits
 
-    # HBM budget: a 100 Mbp DB's sorted table is 16 B/key -- fits a v5e
-    # chip (16 GB) with room for the batch working set
+    # device memory: a 100 Mbp DB's sorted table is 16 B/key -- under
+    # 2 GiB, a small share of one card with room for the batch working
+    # set
     rows = pad(100_000_000)
     assert rows * 16 < 2 * 1024**3
 

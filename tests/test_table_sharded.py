@@ -70,8 +70,7 @@ def test_table_sharded_matches_single_device(data, table):
 
 def test_hash_probe_rejected_under_table_sharding():
     """The bucketized hash table cannot range-partition; the TP entry
-    points reject it with a clear error instead of failing opaquely
-    (VERDICT r1, weak item 8)."""
+    points reject it with a clear error instead of failing opaquely."""
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 devices")
     from shotgun_tpu.io.records import SeqRecord
@@ -131,7 +130,7 @@ def _downgrade_corpus():
 @pytest.mark.parametrize("data,table", [(4, 2), (2, 4)])
 def test_table_sharded_mrq_and_downgrade(data, table):
     """TP result equals single-device with MRQ on and downgrade-quirk
-    reads present (VERDICT r1 item 8: prior coverage was MKQ/MG only)."""
+    reads present (MKQ/MG alone leave these paths uncovered)."""
     if len(jax.devices()) < data * table:
         pytest.skip("needs 8 virtual devices")
     from shotgun_tpu.io.packing import pack_reads

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Per-stage device timing of the default (sort-merge) align path.
 
-Answers VERDICT r3 "what's weak #3": is XLA at the bound on the
-production path, and which stage dominates?  Times each stage of
+Answers "is XLA at the bound on the production path, and which stage
+dominates?"  Times each stage of
 models/pipeline.align_batch_core (sorted v2 probe) as its own jitted
 program on the attached device, then the fused whole for reference.
 
